@@ -1,14 +1,14 @@
 """Halo-overlap A/B: sharded-step steps/s with overlap_halo on vs off.
 
 Part of the >=70% scaling-efficiency protocol (BASELINE.json:5,
-hot_tpu/parallel/distributed.py): run at each device count. On the
-CPU-simulated mesh the numbers are NOT indicative (no ICI); the run
-validates the protocol + program. On a real slice, overlap should win
-once ICI/DCN latency is a visible fraction of the CG iteration.
+hot_mpm/parallel/distributed.py): run at each device count. On the
+CPU-simulated mesh the numbers are NOT indicative (no interconnect); the
+run validates the protocol + program. On real devices, overlap should win
+once halo latency is a visible fraction of the CG iteration.
 
 Usage:
-  python scripts/bench_overlap.py --devices 8        # CPU-simulated mesh
-  python scripts/bench_overlap.py --devices 4 --tpu  # real slice
+  python scripts/bench_overlap.py --devices 8 --cpu  # CPU-simulated mesh
+  python scripts/bench_overlap.py --devices 4        # real devices
 """
 
 from __future__ import annotations
@@ -43,13 +43,13 @@ def main():
     ap.add_argument("--res", type=int, default=32)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--dt", type=float, default=1e-3)
-    ap.add_argument("--tpu", action="store_true",
-                    help="use real devices (default: CPU-simulated mesh)")
+    ap.add_argument("--cpu", action="store_true",
+                    help="CPU-simulated mesh instead of the real devices")
     ap.add_argument("--out", default=None,
                     help="write one JSON row per variant (jsonl)")
     args = ap.parse_args()
 
-    if not args.tpu:
+    if args.cpu:
         flags = os.environ.get("XLA_FLAGS", "")
         os.environ["XLA_FLAGS"] = (
             flags + f" --xla_force_host_platform_device_count={args.devices}"
@@ -57,15 +57,15 @@ def main():
 
     import jax
 
-    if not args.tpu:
+    if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
     import jax.numpy as jnp
 
-    from hot_tpu.parallel.distributed import initialize, mesh_from_config
-    from hot_tpu.parallel.sharded_step import make_sharded_step
-    from hot_tpu.scenes import build_scene, stress_state
-    from hot_tpu.utils.config import MeshConfig
+    from hot_mpm.parallel.distributed import initialize, mesh_from_config
+    from hot_mpm.parallel.sharded_step import make_sharded_step
+    from hot_mpm.scenes import build_scene, stress_state
+    from hot_mpm.utils.config import MeshConfig
 
     initialize()
     mesh = mesh_from_config(MeshConfig(axes=("x",), shape=(args.devices,)))

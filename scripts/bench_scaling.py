@@ -1,5 +1,5 @@
 """Weak-scaling efficiency protocol (BASELINE.json:5 ">=70% nnz/s scaling
-1 chip -> >=2 hosts"), runnable the day a multi-chip slice exists.
+1 chip -> >=2 hosts"), on the devices JAX finds or on a CPU-simulated mesh.
 
 Weak scaling: the grid extends along x with device count (res_x = base *
 D), so nnz/chip and particles/chip stay constant; efficiency(D) =
@@ -7,8 +7,8 @@ steps_per_sec(D) / steps_per_sec(1) (ideal = 1.0 — each device does the
 same work, communication is the only loss).
 
 Usage:
-  python scripts/bench_scaling.py --devices 1 2 4 8   # CPU-simulated
-  python scripts/bench_scaling.py --devices 1 4 --tpu # real slice
+  python scripts/bench_scaling.py --devices 1 2 4 8 --cpu  # CPU-simulated
+  python scripts/bench_scaling.py --devices 1 4            # real devices
 """
 
 from __future__ import annotations
@@ -22,20 +22,20 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def run(devices: int, base_res: int, steps: int, dt: float, tpu: bool):
+def run(devices: int, base_res: int, steps: int, dt: float, cpu: bool):
     import jax
 
-    if not tpu:
+    if cpu:
         jax.config.update("jax_platforms", "cpu")
 
     import dataclasses
 
     import jax.numpy as jnp
 
-    from hot_tpu.parallel.distributed import initialize, mesh_from_config
-    from hot_tpu.parallel.sharded_step import ShardedSimulation
-    from hot_tpu.scenes import build_scene, stress_state
-    from hot_tpu.utils.config import MeshConfig
+    from hot_mpm.parallel.distributed import initialize, mesh_from_config
+    from hot_mpm.parallel.sharded_step import ShardedSimulation
+    from hot_mpm.scenes import build_scene, stress_state
+    from hot_mpm.utils.config import MeshConfig
 
     initialize()
     mesh = mesh_from_config(MeshConfig(axes=("x",), shape=(devices,)))
@@ -90,12 +90,13 @@ def main():
                     help="per-device x-resolution (weak scaling)")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--dt", type=float, default=1e-3)
-    ap.add_argument("--tpu", action="store_true")
+    ap.add_argument("--cpu", action="store_true",
+                    help="CPU-simulated mesh instead of the real devices")
     ap.add_argument("--out", default=None,
                     help="write one JSON row per device count (jsonl)")
     args = ap.parse_args()
 
-    if not args.tpu:
+    if args.cpu:
         flags = os.environ.get("XLA_FLAGS", "")
         os.environ["XLA_FLAGS"] = (
             flags
@@ -104,7 +105,7 @@ def main():
 
     if os.environ.get("HOT_SCALING_CHILD"):
         d = int(os.environ["HOT_SCALING_CHILD"])
-        print(json.dumps(run(d, args.res, args.steps, args.dt, args.tpu)),
+        print(json.dumps(run(d, args.res, args.steps, args.dt, args.cpu)),
               flush=True)
         return
 

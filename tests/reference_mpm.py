@@ -1,7 +1,7 @@
 """Independent dense numpy reference implementation of one implicit MPM step.
 
 This is the CPU-runnable correctness reference of BASELINE.json:7 (config
-1): same algorithm as hot_tpu (backward-Euler incremental potential,
+1): same algorithm as hot_mpm (backward-Euler incremental potential,
 SPD-projected Newton, mass-Jacobi PCG, characteristic-norm termination),
 implemented separately with numpy loops + np.linalg (svd/eigh) and an
 EXPLICIT dense Hessian — no code shared with the JAX implementation
@@ -161,7 +161,7 @@ def advance_one_step_ref(
     cn_eps=1e-2, cg_tol=1e-3, max_newton=10, max_cg=200, boundary_margin=2,
     kernel="quadratic",
 ):
-    """Mirrors hot_tpu.sim.simulation.advance_one_step for 2D fixed
+    """Mirrors hot_mpm.sim.simulation.advance_one_step for 2D fixed
     corotated + sticky floor halfspace. Returns RefResult with positions,
     velocities, per-Newton CG iteration counts."""
     n = x.shape[0]
@@ -286,7 +286,7 @@ def advance_one_step_ref(
         return H
 
     def cg(H, b_vec, eta):
-        """Jacobi(mass)-preconditioned CG, same termination as hot_tpu."""
+        """Jacobi(mass)-preconditioned CG, same termination as hot_mpm."""
         inv_m = np.zeros(n_nodes)
         inv_m[active] = 1.0 / grid_m[active]
 

@@ -6,9 +6,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from hot_tpu.scenes import build_scene
-from hot_tpu.sim import Simulation
-from hot_tpu.utils.config import config_from_overrides
+from hot_mpm.scenes import build_scene
+from hot_mpm.sim import Simulation
+from hot_mpm.utils.config import config_from_overrides
 
 
 def test_explicit_integrator_free_fall_and_impact():
@@ -59,10 +59,10 @@ def test_coarse_cg_multigrid():
 
 def test_difftest_orders():
     """FD refinement sweep shows ~2nd-order consistency of E -> r -> H."""
-    from hot_tpu.ops import transfer
-    from hot_tpu.sim import collision
-    from hot_tpu.sim import objective as obj_mod
-    from hot_tpu.sim.difftest import run_difftest
+    from hot_mpm.ops import transfer
+    from hot_mpm.sim import collision
+    from hot_mpm.sim import objective as obj_mod
+    from hot_mpm.sim.difftest import run_difftest
 
     scene = build_scene("block_drop_2d", res=24, E=1e5, dtype=jnp.float64)
     cfg = scene["cfg"]
@@ -92,7 +92,7 @@ def test_difftest_orders():
 
 
 def test_obj_mesh_sampling(tmp_path):
-    from hot_tpu.io.mesh import load_obj, points_inside_mesh, sample_mesh
+    from hot_mpm.io.mesh import load_obj, points_inside_mesh, sample_mesh
 
     # unit cube OBJ
     cube = """

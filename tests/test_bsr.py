@@ -6,10 +6,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from hot_tpu.ops import bsr, transfer
-from hot_tpu.scenes import build_scene
-from hot_tpu.sim import collision
-from hot_tpu.sim import objective as obj_mod
+from hot_mpm.ops import bsr, transfer
+from hot_mpm.scenes import build_scene
+from hot_mpm.sim import collision
+from hot_mpm.sim import objective as obj_mod
 
 
 def _setup(res=24, E=1e6, dt=3e-3, dim=2):
@@ -117,14 +117,14 @@ def test_block_diag_matches_objective():
 
 def test_spmv_tiled_matches(rng):
     """Tile-ordered rows + supertile-window SpMV == compressed-row SpMV."""
-    from hot_tpu.grid import sparse as sparse_mod
-    from hot_tpu.ops import bsr_tiled
+    from hot_mpm.grid import sparse as sparse_mod
+    from hot_mpm.ops import bsr_tiled
 
     mat, obj, hess, state, gm, active, n_nodes = _setup()
     res = mat.res
     dx = obj.stencil.rel.shape  # unused; dx comes from scene
     # tile grid over the same particles
-    from hot_tpu.scenes import build_scene
+    from hot_mpm.scenes import build_scene
 
     scene = build_scene("block_drop_2d", res=24, E=1e6, dtype=jnp.float64)
     cfg = scene["cfg"]
@@ -148,9 +148,9 @@ def test_spmv_tiled_matches(rng):
 
 def test_spmv_tiled_matches_3d(rng):
     """3D supertile windows (12^3 -> 8^3) against the compressed-row SpMV."""
-    from hot_tpu.grid import sparse as sparse_mod
-    from hot_tpu.ops import bsr_tiled
-    from hot_tpu.scenes import build_scene
+    from hot_mpm.grid import sparse as sparse_mod
+    from hot_mpm.ops import bsr_tiled
+    from hot_mpm.scenes import build_scene
 
     scene = build_scene("twisting_bar_3d", res=16, ppc=4, dtype=jnp.float64)
     cfg, state, model = scene["cfg"], scene["state"], scene["model"]
@@ -190,60 +190,17 @@ def test_spmv_tiled_matches_3d(rng):
     )
 
 
-def test_spmv_transposed_pallas_matches(rng):
-    """Transposed-lane Pallas SpMV (spmv_T) == supertile SpMV, 2D and 3D.
-
-    Runs the kernel in interpret mode on CPU (the sanitizer of SURVEY.md
-    §5.2); on TPU the same code path compiles via Mosaic.
-    """
-    from hot_tpu.grid import sparse as sparse_mod
-    from hot_tpu.ops import bsr_tiled
-    from hot_tpu.scenes import build_scene
-
-    for scene_name, res_n, dim in [("block_drop_2d", 24, 2),
-                                   ("twisting_bar_3d", 16, 3)]:
-        scene = build_scene(scene_name, res=res_n,
-                            **({"E": 1e6} if dim == 2 else {"ppc": 4}),
-                            dtype=jnp.float64)
-        cfg, state, model = scene["cfg"], scene["state"], scene["model"]
-        res = cfg.grid_res[:dim]
-        n_nodes = transfer.n_nodes_of(res)
-        st = transfer.particle_stencil(state.x, cfg.dx, res)
-        gm, _ = transfer.p2g_mass_momentum(st, state.v, state.C, state.m, n_nodes)
-        obj = obj_mod.make_objective(
-            model, st, state.F, state.V0, state.mu, state.lam, gm,
-            jnp.zeros((n_nodes, dim)),
-            jnp.broadcast_to(jnp.eye(dim), (n_nodes, dim, dim)), 2e-3, cfg.dx,
-        )
-        hess = obj_mod.build_hessian(model, obj, jnp.zeros((n_nodes, dim)))
-
-        tgrid = sparse_mod.build_tile_grid(state.x, cfg.dx, res, capacity=64)
-        tmat = bsr_tiled.structure_tiled(tgrid)
-        tmat = bsr.assemble_hessian(tmat, st, state.F, hess.ctx, state.V0, 2e-3, gm)
-        nbr = bsr_tiled.tile_neighbors(tgrid)
-
-        x_rows = jnp.asarray(
-            rng.standard_normal((tgrid.capacity * tgrid.tile_nodes, dim))
-        )
-        want = bsr_tiled.spmv_tiled(tmat, tgrid, nbr, x_rows)
-        got = bsr_tiled.spmv_tiled_pallas(tmat, tgrid, nbr, x_rows)
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(want), rtol=1e-9, atol=1e-9,
-            err_msg=scene_name,
-        )
-
-
 def test_assemble_hessian_binned_matches(rng):
     """Scatter-free binned assembly == per-particle scatter assembly
-    (same quadrature; the binned path exists because XLA:TPU serializes
-    colliding scatter-adds — docs/KERNEL_PLAN.md)."""
+    (same quadrature; the binned path avoids colliding scatter-adds —
+    docs/KERNEL_PLAN.md "Dynamic indexing")."""
     import jax.numpy as jnp
 
-    from hot_tpu.grid import sparse as sparse_mod
-    from hot_tpu.ops import bsr as bsr_mod
-    from hot_tpu.ops import bsr_tiled, transfer
-    from hot_tpu.scenes import build_scene
-    from hot_tpu.sim import objective as obj_mod
+    from hot_mpm.grid import sparse as sparse_mod
+    from hot_mpm.ops import bsr as bsr_mod
+    from hot_mpm.ops import bsr_tiled, transfer
+    from hot_mpm.scenes import build_scene
+    from hot_mpm.sim import objective as obj_mod
 
     scene = build_scene("twisting_bar_3d", res=16, ppc=4, dtype=jnp.float64)
     cfg, state, model = scene["cfg"], scene["state"], scene["model"]
@@ -274,7 +231,7 @@ def test_assemble_hessian_binned_matches(rng):
                                rtol=0, atol=1e-9 * scale)
 
     # rank-1 mode-factorized assembly (B = Z^T lam Z per cell): the
-    # TPU-shaped formulation with no (d,d,d,d) intermediates — must build
+    # scatter-free formulation with no (d,d,d,d) intermediates — must build
     # the identical operator
     m_modes = bsr_mod.assemble_hessian_modes(
         mat0, bins, st, state.F, hess.ctx, state.V0, dt, gm
@@ -288,10 +245,10 @@ def test_assemble_hessian_modes_matches_2d(rng):
     import jax.numpy as jnp
     import numpy as np
 
-    from hot_tpu.ops import bsr as bsr_mod
-    from hot_tpu.ops import transfer
-    from hot_tpu.scenes import build_scene
-    from hot_tpu.sim import objective as obj_mod
+    from hot_mpm.ops import bsr as bsr_mod
+    from hot_mpm.ops import transfer
+    from hot_mpm.scenes import build_scene
+    from hot_mpm.sim import objective as obj_mod
 
     scene = build_scene("block_drop_2d", res=24, dtype=jnp.float64)
     cfg, state, model = scene["cfg"], scene["state"], scene["model"]
@@ -332,8 +289,8 @@ def test_explicit_bsr_step_matches_matrix_free():
 
     import jax.numpy as jnp
 
-    from hot_tpu.scenes import build_scene
-    from hot_tpu.sim import Simulation
+    from hot_mpm.scenes import build_scene
+    from hot_mpm.sim import Simulation
 
     def run(matrix_free, impl):
         scene = build_scene("block_drop_2d", res=32, E=1e6, dtype=jnp.float64)

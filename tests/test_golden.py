@@ -11,9 +11,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from hot_tpu.scenes import build_scene
-from hot_tpu.sim import Simulation
-from hot_tpu.sim.simulation import advance_one_step
+from hot_mpm.scenes import build_scene
+from hot_mpm.sim import Simulation
+from hot_mpm.sim.simulation import advance_one_step
 
 from reference_mpm import advance_one_step_ref
 

@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hot_tpu.models.constitutive import (
+from hot_mpm.models.constitutive import (
     MODEL_REGISTRY,
     apply_hessian,
     first_piola,
@@ -20,8 +20,8 @@ from hot_tpu.models.constitutive import (
     lame_parameters,
     psi_from_F,
 )
-from hot_tpu.models.plasticity import DruckerPrager, SnowPlasticity, VonMisesHencky
-from hot_tpu.ops.svd import svd
+from hot_mpm.models.plasticity import DruckerPrager, SnowPlasticity, VonMisesHencky
+from hot_mpm.ops.svd import svd
 
 MU, LAM = lame_parameters(1e4, 0.3)
 
@@ -38,7 +38,7 @@ def test_bm_hat_matches_quotient_and_its_degenerate_limit(name, d):
     (a) equals the direct quotient at well-separated sigmas, and
     (b) equals the analytic limit at repeated sigmas — the case every
     near-rest particle hits, where the naive quotient is 0/0 (this noise
-    was measured to stall Newton/CG on TPU fp32)."""
+    stalls Newton/CG in fp32)."""
     model = MODEL_REGISTRY[name]
 
     def bm0(sig):

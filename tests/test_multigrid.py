@@ -11,11 +11,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hot_tpu.ops import transfer
-from hot_tpu.scenes import build_scene
-from hot_tpu.sim import Simulation
-from hot_tpu.solver import multigrid as mg_mod
-from hot_tpu.utils.config import config_from_overrides
+from hot_mpm.ops import transfer
+from hot_mpm.scenes import build_scene
+from hot_mpm.sim import Simulation
+from hot_mpm.solver import multigrid as mg_mod
+from hot_mpm.utils.config import config_from_overrides
 
 
 def _run(precon, res=48, E=1e7, steps=75, dt=4e-3, levels=3):
@@ -62,7 +62,7 @@ def _linear_system(res, E=1e7, dt=4e-3, levels=3):
     impact (a physically smooth deformation — what MG is designed for),
     plus both preconditioner closures. Isolates the preconditioner property
     from trajectory/forcing noise."""
-    from hot_tpu.sim import collision, objective as obj_mod
+    from hot_mpm.sim import collision, objective as obj_mod
 
     scene = build_scene("block_drop_2d", res=res, E=E, dtype=jnp.float64)
     cfg = scene["cfg"]
@@ -84,7 +84,7 @@ def _linear_system(res, E=1e7, dt=4e-3, levels=3):
         node_pos, 0.0, scene["colliders"], grid_v=v_star, boundary_margin=2,
         res=grid_res, dx=dx,
     )
-    from hot_tpu.sim.collision import apply_bc_to_velocity
+    from hot_mpm.sim.collision import apply_bc_to_velocity
 
     v0 = apply_bc_to_velocity(v_star, proj, v_bc)
     obj = obj_mod.make_objective(
@@ -118,7 +118,7 @@ def test_mg_iterations_resolution_independent():
     MG-PCG needs several-fold fewer iterations than Jacobi-PCG at every
     resolution, and its count stops growing at fine resolution (measured
     baseline: MG 20/85/71 vs Jacobi 107/321/319 at 32/64/96)."""
-    from hot_tpu.solver.cg import cg_solve
+    from hot_mpm.solver.cg import cg_solve
 
     iters = {}
     for res in (64, 96):
@@ -139,7 +139,7 @@ def test_mg_direct_coarse_solver():
     """coarse_solver="direct" (dense Cholesky of the agglomerated coarsest
     operator — the reference's Eigen LDLT option): MG-PCG must converge and
     need no more iterations than the smoother-coarse V-cycle."""
-    from hot_tpu.solver.cg import cg_solve
+    from hot_mpm.solver.cg import cg_solve
 
     mult, project, prec_sm, _, b, make_prec = _linear_system(48)
     prec_dir = make_prec(coarse_solver="direct")
@@ -156,9 +156,9 @@ def test_mg_direct_coarse_solver():
 def test_vcycle_contracts_residual(rng):
     """One V-cycle as a stationary iteration must reduce |r| substantially
     on the free subspace (smoke test of smoother + coarse correction)."""
-    from hot_tpu.models import constitutive as cm
-    from hot_tpu.sim import collision, objective as obj_mod
-    from hot_tpu.sim.simulation import advance_one_step
+    from hot_mpm.models import constitutive as cm
+    from hot_mpm.sim import collision, objective as obj_mod
+    from hot_mpm.sim.simulation import advance_one_step
 
     scene = build_scene("block_drop_2d", res=32, E=1e6, dtype=jnp.float64)
     cfg = scene["cfg"]
@@ -208,8 +208,8 @@ def test_assembled_vcycle_matches_matrix_free(rng):
     """Assembled levels (explicit tile-row BSR + supertile SpMV smoothers)
     must produce the same V-cycle output as the matrix-free quadrature
     path — it is the same operator, assembled once per Newton iteration."""
-    from hot_tpu.sim import objective as obj_mod
-    from hot_tpu.utils.config import MultigridConfig
+    from hot_mpm.sim import objective as obj_mod
+    from hot_mpm.utils.config import MultigridConfig
 
     scene = build_scene("block_drop_2d", res=32, E=1e6, dtype=jnp.float64)
     cfg = scene["cfg"]
@@ -305,10 +305,10 @@ def test_galerkin_hierarchy_consistency_and_contraction():
     """
     import dataclasses
 
-    from hot_tpu.sim import collision
-    from hot_tpu.sim import objective as obj_mod
-    from hot_tpu.solver.cg import cg_solve
-    from hot_tpu.utils.config import MultigridConfig
+    from hot_mpm.sim import collision
+    from hot_mpm.sim import objective as obj_mod
+    from hot_mpm.solver.cg import cg_solve
+    from hot_mpm.utils.config import MultigridConfig
 
     scene = build_scene("twisting_bar_3d", res=16, ppc=4, dtype=jnp.float64)
     cfg = scene["cfg"]
@@ -346,7 +346,7 @@ def test_galerkin_hierarchy_consistency_and_contraction():
     pre = mg_mod.build_precond(mgs, state.F, hess.ctx, state.V0, dt, mcfg, dim)
 
     # 1. consistency: A_1 e == R (A_0 (P e)) on free coarse vectors
-    from hot_tpu.ops import bsr as bsr_mod
+    from hot_mpm.ops import bsr as bsr_mod
 
     lvl0, lvl1 = mgs.levels
     n_c = lvl1.grid_m.shape[0]
@@ -394,7 +394,7 @@ def test_colored_gs_smoother():
     the palindromic parity-colored GS sweep is a symmetric smoother, so
     MG-PCG with it converges at matched tolerance in the same ballpark as
     the Chebyshev-smoothed cycle, and far below Jacobi-PCG."""
-    from hot_tpu.solver.cg import cg_solve
+    from hot_mpm.solver.cg import cg_solve
 
     mult, project, prec_cheb, prec_jac, b, make_prec = _linear_system(48)
     prec_gs = make_prec(smoother="colored_gs", pre_smooth=1, post_smooth=1)
@@ -417,9 +417,9 @@ def _bar_system(res_n=16, levels=3, dt_f=8e-3):
     """Shared twisting-bar Newton system + galerkin MG statics (f64)."""
     import dataclasses
 
-    from hot_tpu.sim import collision
-    from hot_tpu.sim import objective as obj_mod
-    from hot_tpu.utils.config import MultigridConfig
+    from hot_mpm.sim import collision
+    from hot_mpm.sim import objective as obj_mod
+    from hot_mpm.utils.config import MultigridConfig
 
     scene = build_scene("twisting_bar_3d", res=res_n, ppc=4, dtype=jnp.float64)
     cfg = scene["cfg"]
@@ -463,8 +463,8 @@ def test_rap_max_half_truncation_guard():
     the residual, and (c) costs at most 1.5x the exact hierarchy's CG
     iterations at matched tolerance — the CG-count guard that makes the
     knob safe to enable for build-time wins."""
-    from hot_tpu.solver.cg import cg_solve
-    from hot_tpu.utils.config import MultigridConfig
+    from hot_mpm.solver.cg import cg_solve
+    from hot_mpm.utils.config import MultigridConfig
 
     s = _bar_system(res_n=16, levels=3)
     mgs, state, hess = s["mgs"], s["state"], s["hess"]
@@ -524,8 +524,8 @@ def test_rap_refresh_lagged():
     and the end-to-end lagged step converges with a bounded CG overhead."""
     import dataclasses
 
-    from hot_tpu.solver.cg import cg_solve
-    from hot_tpu.utils.config import MultigridConfig, config_from_overrides
+    from hot_mpm.solver.cg import cg_solve
+    from hot_mpm.utils.config import MultigridConfig, config_from_overrides
 
     s = _bar_system(res_n=16, levels=3)
     mgs, state, hess = s["mgs"], s["state"], s["hess"]

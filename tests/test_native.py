@@ -1,4 +1,4 @@
-"""Native host runtime (hot_tpu.native): C++ writers/samplers vs the pure
+"""Native host runtime (hot_mpm.native): C++ writers/samplers vs the pure
 fallbacks, and round-trips of the frame formats.
 
 Reference parity: PartioIO .bgeo frames (#19), PlyIO (#17), mesh inside
@@ -12,13 +12,13 @@ import os
 import numpy as np
 import pytest
 
-from hot_tpu import native
-from hot_tpu.io.mesh import load_obj, points_inside_mesh
+from hot_mpm import native
+from hot_mpm.io.mesh import load_obj, points_inside_mesh
 
 
 def test_native_builds():
     """The C++ toolchain is present in this image; the lib must build."""
-    assert native.have_native(), "g++ build of hot_tpu/native/native.cpp failed"
+    assert native.have_native(), "g++ build of hot_mpm/native/native.cpp failed"
 
 
 def test_bgeo_roundtrip(tmp_path, rng):

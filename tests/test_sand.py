@@ -20,8 +20,8 @@ CPU fp64, ~1k particles, 200 steps of dt=3e-3 (0.6 s of collapse).
 
 import numpy as np
 
-from hot_tpu.scenes import build_scene
-from hot_tpu.sim import Simulation
+from hot_mpm.scenes import build_scene
+from hot_mpm.sim import Simulation
 
 FLOOR = 0.15
 DT = 3e-3

@@ -6,8 +6,8 @@ and the registered scene steps.
 import numpy as np
 import jax.numpy as jnp
 
-from hot_tpu.scenes import build_scene
-from hot_tpu.scenes.assets import faceless_mesh, write_faceless_obj
+from hot_mpm.scenes import build_scene
+from hot_mpm.scenes.assets import faceless_mesh, write_faceless_obj
 
 
 def test_faceless_mesh_watertight():
@@ -31,7 +31,7 @@ def test_faceless_mesh_watertight():
 
 
 def test_faceless_mesh_inside_sampling(tmp_path):
-    from hot_tpu.io.mesh import load_obj, points_inside_mesh
+    from hot_mpm.io.mesh import load_obj, points_inside_mesh
 
     path = write_faceless_obj(str(tmp_path / "faceless.obj"))
     verts, faces = load_obj(path)
@@ -54,7 +54,7 @@ def test_faceless_mesh_inside_sampling(tmp_path):
 def test_faceless_mesh_scene_steps():
     """The registered mesh-sampled scene builds and survives implicit
     steps (small res; the full config-5 scale runs on hardware)."""
-    from hot_tpu.sim import Simulation
+    from hot_mpm.sim import Simulation
 
     scene = build_scene("faceless_mesh_3d", res=32, ppc=2,
                         dtype=jnp.float64)

@@ -8,14 +8,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hot_tpu.ops import transfer
-from hot_tpu.parallel.halo import exchange_halo, fold_halo
-from hot_tpu.parallel.mesh import loop_mesh_width, make_mesh
-from hot_tpu.parallel.sharded import partition_system, sharded_cg_solve
-from hot_tpu.scenes import build_scene
-from hot_tpu.sim import Simulation, collision
-from hot_tpu.sim import objective as obj_mod
-from hot_tpu.solver.cg import cg_solve
+from hot_mpm.ops import transfer
+from hot_mpm.parallel.halo import exchange_halo, fold_halo
+from hot_mpm.parallel.mesh import loop_mesh_width, make_mesh
+from hot_mpm.parallel.sharded import partition_system, sharded_cg_solve
+from hot_mpm.scenes import build_scene
+from hot_mpm.sim import Simulation, collision
+from hot_mpm.sim import objective as obj_mod
+from hot_mpm.solver.cg import cg_solve
 
 
 def _impact_system(res=32, E=1e6, dt=4e-3):

@@ -10,11 +10,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hot_tpu.parallel.mesh import loop_mesh_width, make_mesh
-from hot_tpu.parallel.sharded_step import make_sharded_step
-from hot_tpu.scenes import build_scene
-from hot_tpu.sim import Simulation
-from hot_tpu.sim.simulation import advance_one_step
+from hot_mpm.parallel.mesh import loop_mesh_width, make_mesh
+from hot_mpm.parallel.sharded_step import make_sharded_step
+from hot_mpm.scenes import build_scene
+from hot_mpm.sim import Simulation
+from hot_mpm.sim.simulation import advance_one_step
 
 
 def test_sharded_step_3d_matches_single_device():
@@ -251,7 +251,7 @@ def test_migrating_step_matches_single_device():
     over particles."""
     import dataclasses
 
-    from hot_tpu.parallel.sharded_step import (
+    from hot_mpm.parallel.sharded_step import (
         ShardedSimulation, make_migrating_step, partition_with_ids,
     )
 
@@ -317,7 +317,7 @@ def test_migrating_step_matches_single_device():
 def test_migrating_step_overflow_fallback():
     """An undersized migrate_cap flips the overflow flag and the host
     wrapper recovers via one global repartition."""
-    from hot_tpu.parallel.sharded_step import ShardedSimulation
+    from hot_mpm.parallel.sharded_step import ShardedSimulation
 
     scene = build_scene("block_drop_2d", res=32, dtype=jnp.float64)
     state = scene["state"].replace(
@@ -366,7 +366,7 @@ def test_migration_tight_cap_soak():
     scene runs 60 steps with ZERO global repartitions and conserves every
     particle id; the trajectory is bit-identical to a generous-cap run
     (capacity only changes buffer sizes, never values)."""
-    from hot_tpu.parallel.sharded_step import ShardedSimulation
+    from hot_mpm.parallel.sharded_step import ShardedSimulation
 
     scene = build_scene("block_drop_2d", res=16, dtype=jnp.float64)
     state = scene["state"].replace(
@@ -401,8 +401,8 @@ def test_sharded_checkpoint_roundtrip(tmp_path):
     and continue — the resumed trajectory equals the uninterrupted one
     exactly (the checkpoint carries the full particle SoA; grid state is
     derived, as in the reference's writeState/readState)."""
-    from hot_tpu.parallel.distributed import checkpoint_spec
-    from hot_tpu.parallel.sharded_step import ShardedSimulation
+    from hot_mpm.parallel.distributed import checkpoint_spec
+    from hot_mpm.parallel.sharded_step import ShardedSimulation
 
     scene = build_scene("block_drop_2d", res=16, dtype=jnp.float64)
     cfg = scene["cfg"]
@@ -447,7 +447,7 @@ def test_cli_mesh_launch(tmp_path):
     ShardedSimulation, writes frames and per-process checkpoint shards."""
     import os
 
-    from hot_tpu.cli import main
+    from hot_mpm.cli import main
 
     out = str(tmp_path / "run")
     rc = main([

@@ -7,9 +7,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from hot_tpu.io import load_checkpoint, save_checkpoint
-from hot_tpu.scenes import build_scene
-from hot_tpu.sim import Simulation
+from hot_mpm.io import load_checkpoint, save_checkpoint
+from hot_mpm.scenes import build_scene
+from hot_mpm.sim import Simulation
 
 
 def small_drop(dtype=jnp.float64):
@@ -97,7 +97,7 @@ def test_fault_injection_dt_retry():
     NaN sentinel catches it, then checkpoint-resume recovers the run."""
     import jax.numpy as jnp
 
-    from hot_tpu.io import load_checkpoint, save_checkpoint
+    from hot_mpm.io import load_checkpoint, save_checkpoint
 
     sim = make_sim(small_drop())
     for _ in range(10):
@@ -152,7 +152,7 @@ def test_binned_slot_step_matches_scatter():
     scene_b = small_drop()
     # slot_major=True: explicitly exercise the slot-major layout (opt-in
     # since the 2026-08-19 A/B showed the padding tax costs 26% end-to-end)
-    from hot_tpu.utils.config import config_from_overrides
+    from hot_mpm.utils.config import config_from_overrides
 
     cfg_b = config_from_overrides(scene_b["cfg"], {"solver.slot_major": True})
     cfg_b = dataclasses.replace(cfg_b, transfer_impl="binned")
@@ -236,8 +236,8 @@ def test_cylinder_collider_sdf_and_sampling():
     """Cylinder level set (SURVEY #16): sign classification, |normal| = 1,
     normal == finite-difference gradient of phi, and seeding stays inside."""
     import numpy as np
-    from hot_tpu.sim.collision import Cylinder
-    from hot_tpu.sim.seeding import sample_cylinder
+    from hot_mpm.sim.collision import Cylinder
+    from hot_mpm.sim.seeding import sample_cylinder
 
     cyl = Cylinder(center=(0.5, 0.5, 0.5), axis=(0.0, 0.0, 1.0),
                    radius=0.2, half_height=0.1)
@@ -277,7 +277,7 @@ def test_vtk_writer_native_matches_python(tmp_path):
     """VTK frame writer (SURVEY #17 VtkIO): native C++ and the Python
     fallback must produce identical bytes; header must parse."""
     import numpy as np
-    from hot_tpu import native
+    from hot_mpm import native
 
     rng = np.random.default_rng(3)
     x = rng.standard_normal((37, 3)).astype(np.float32)

@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from hot_tpu.solver.cg import cg_solve, minres_solve
-from hot_tpu.solver.newton import newton_solve
+from hot_mpm.solver.cg import cg_solve, minres_solve
+from hot_mpm.solver.newton import newton_solve
 
 
 def spd_system(rng, n=64, cond=100.0):
@@ -116,8 +116,8 @@ def test_precond_refresh_step_lag():
     import jax
     import jax.numpy as jnp
 
-    from hot_tpu.scenes import build_scene
-    from hot_tpu.sim import Simulation
+    from hot_mpm.scenes import build_scene
+    from hot_mpm.sim import Simulation
 
     runs = {}
     for refresh in ("newton", "step"):
@@ -155,7 +155,7 @@ def test_sym_block_inv_fp32_scales():
     import numpy as np
     import jax.numpy as jnp
 
-    from hot_tpu.sim.objective import sym_block_inv
+    from hot_mpm.sim.objective import sym_block_inv
 
     rng = np.random.default_rng(0)
     for d in (2, 3):
@@ -181,10 +181,10 @@ def test_elastic_block_diag_mode_form(rng):
     import jax.numpy as jnp
     import numpy as np
 
-    from hot_tpu.models import constitutive as cm
-    from hot_tpu.ops import transfer
-    from hot_tpu.scenes import build_scene
-    from hot_tpu.sim import objective as obj_mod
+    from hot_mpm.models import constitutive as cm
+    from hot_mpm.ops import transfer
+    from hot_mpm.scenes import build_scene
+    from hot_mpm.sim import objective as obj_mod
 
     for name, dim in (("block_drop_2d", 2), ("twisting_bar_3d", 3)):
         kwargs = dict(res=16, ppc=2) if dim == 3 else dict(res=24)

@@ -7,11 +7,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from hot_tpu.grid import sparse as sp
-from hot_tpu.ops import transfer
-from hot_tpu.scenes import build_scene
-from hot_tpu.sim import Simulation
-from hot_tpu.utils.config import config_from_overrides
+from hot_mpm.grid import sparse as sp
+from hot_mpm.ops import transfer
+from hot_mpm.scenes import build_scene
+from hot_mpm.sim import Simulation
+from hot_mpm.utils.config import config_from_overrides
 
 
 def test_activation_covers_all_stencil_tiles(rng):
@@ -99,7 +99,7 @@ def test_sparse_3d_runs():
 def test_tile_binned_scatter_gather_match(rng):
     """Tile-local binned transfers (ops.tile_transfer) == plain compacted
     scatter_sum/gather for both 2D and 3D random particle sets."""
-    from hot_tpu.ops import bsr_tiled, tile_transfer
+    from hot_mpm.ops import bsr_tiled, tile_transfer
 
     for dim, res_n, n in ((2, 32, 400), (3, 16, 300)):
         res = (res_n,) * dim
@@ -176,9 +176,9 @@ def test_sparse_tile_binned_3d_runs():
 def test_tiled_mode_assembly_matches_matrix_free(rng):
     """assemble_hessian_modes_tiled on the compacted tile structure ==
     the matrix-free quadrature apply on compacted vectors (2D + 3D)."""
-    from hot_tpu.models import constitutive as cm
-    from hot_tpu.ops import bsr_tiled, tile_transfer
-    from hot_tpu.sim import objective as obj_mod
+    from hot_mpm.models import constitutive as cm
+    from hot_mpm.ops import bsr_tiled, tile_transfer
+    from hot_mpm.sim import objective as obj_mod
 
     model = cm.FixedCorotated()
     for dim, res_n, n in ((2, 32, 300), (3, 16, 200)):
@@ -228,8 +228,8 @@ def test_rap_tiled_matches_dense_on_active_tiles(rng):
     """spgemm.rap with coarse_tgrid == dense rap on every coarse row that
     lies inside an active coarse tile (rows outside are the documented
     subspace drop)."""
-    from hot_tpu.models import constitutive as cm
-    from hot_tpu.ops import bsr, bsr_tiled, spgemm, tile_transfer
+    from hot_mpm.models import constitutive as cm
+    from hot_mpm.ops import bsr, bsr_tiled, spgemm, tile_transfer
 
     model = cm.FixedCorotated()
     dim, res_n, n = 2, 32, 300

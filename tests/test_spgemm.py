@@ -5,7 +5,7 @@ numpy construction of the node-embedding prolongation (SURVEY.md §4.3).
 import jax.numpy as jnp
 import numpy as np
 
-from hot_tpu.ops import bsr, spgemm, transfer
+from hot_mpm.ops import bsr, spgemm, transfer
 from test_bsr import _setup
 
 
@@ -47,7 +47,7 @@ def test_rap_matches_dense():
     # coarse activity: any coarse node receiving weight from an active fine node
     coords = transfer.unravel(jnp.arange(n_nodes), res_f)
     base, w = spgemm.embedding_weights(coords, jnp.float64)
-    from hot_tpu.ops.bspline import stencil_offsets
+    from hot_mpm.ops.bspline import stencil_offsets
 
     offs = stencil_offsets(2)
     Jc = base[:, None, :] + offs[None]
@@ -146,8 +146,8 @@ def test_composed_galerkin_equals_rap(rng):
     import jax.numpy as jnp
     import numpy as np
 
-    from hot_tpu.models import constitutive as cm
-    from hot_tpu.ops import bsr, composed as comp_mod, spgemm, transfer
+    from hot_mpm.models import constitutive as cm
+    from hot_mpm.ops import bsr, composed as comp_mod, spgemm, transfer
 
     model = cm.FixedCorotated()
     for dim, res_n, n in ((2, 16, 250), (3, 8, 120)):

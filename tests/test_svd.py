@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hot_tpu.ops.svd import svd, svd2, svd3, polar, eigh_sym
+from hot_mpm.ops.svd import svd, svd2, svd3, polar, eigh_sym
 
 
 def random_mats(rng, n, d, scale=1.0):
@@ -136,7 +136,7 @@ def test_batched_wrappers(rng):
 
 
 def test_svd_float32_accuracy(rng):
-    """fp32 path (the TPU path) stays within fp32-appropriate tolerance."""
+    """fp32 path (the device path) stays within fp32-appropriate tolerance."""
     A = jnp.asarray(rng.standard_normal((100, 3, 3)), dtype=jnp.float32)
     U, s, V = jax.vmap(svd)(A)
     assert U.dtype == jnp.float32

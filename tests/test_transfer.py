@@ -7,13 +7,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hot_tpu.ops.bspline import (
+from hot_mpm.ops.bspline import (
     quadratic_bspline_weights,
     quadratic_kernel_1d,
     stencil_offsets,
     tensor_weights,
 )
-from hot_tpu.ops import transfer
+from hot_mpm.ops import transfer
 
 
 def rand_positions(rng, n, dim, res, dx):
@@ -204,7 +204,7 @@ def test_bin_particles_valid_mask_excludes_pads(rng):
 def test_cubic_partition_of_unity_and_linear_reproduction(rng):
     """Cubic B-splines (4-wide): sum w = 1, sum w x_i = x_p, sum gw = 0,
     sum x_i gw^T = I — same identities the quadratic kernel satisfies."""
-    from hot_tpu.ops.bspline import cubic_bspline_weights
+    from hot_mpm.ops.bspline import cubic_bspline_weights
 
     dx = 1.0 / 32
     for dim in (2, 3):
@@ -227,7 +227,7 @@ def test_cubic_partition_of_unity_and_linear_reproduction(rng):
 
 def test_cubic_kernel_1d_values():
     """At u=1 (particle on a node): cubic weights [1/6, 2/3, 1/6, 0]."""
-    from hot_tpu.ops.bspline import cubic_kernel_1d
+    from hot_mpm.ops.bspline import cubic_kernel_1d
 
     w = cubic_kernel_1d(jnp.asarray(1.0))
     np.testing.assert_allclose(

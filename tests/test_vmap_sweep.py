@@ -1,6 +1,6 @@
 """Data-parallel parameter sweeps via vmap (SURVEY.md §2.5's DP row):
 one jit, a batch of scenes with different material stiffness — the
-TPU-native replacement for running the reference binary N times.
+batched replacement for running the reference binary N times.
 """
 
 import functools
@@ -9,9 +9,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from hot_tpu.models.constitutive import lame_parameters
-from hot_tpu.scenes import build_scene
-from hot_tpu.sim.simulation import advance_one_step
+from hot_mpm.models.constitutive import lame_parameters
+from hot_mpm.scenes import build_scene
+from hot_mpm.sim.simulation import advance_one_step
 
 
 def test_vmap_stiffness_sweep():
