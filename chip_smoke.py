@@ -13,8 +13,11 @@ Phases (one card):
   step        twisting_bar_3d at res=128, ppc=8 (~416k particles) through
               Simulation.step at the CFL dt: (a) matrix-free Newton with
               block-Jacobi PCG, (b) Galerkin-assembled 4-level multigrid
-              with a direct coarse solve; the (a)/(b) first-step
-              cross-check and bitwise determinism of a repeated step.
+              with a direct coarse solve (power_iters=30, overriding the
+              library default, which is run once and reported as a known
+              failure); bitwise determinism of a repeated step; the
+              first steps of (a) and (b) checked against each other and
+              against a tight solve (cn_eps 1e-4).
   reference   one step at res=64 on the GPU and on the host CPU in the same
               process; config 1 (2D block drop, float64) against the dense
               numpy reference tests/reference_mpm.py.
@@ -100,23 +103,32 @@ def bar_scene(res: int, ppc: int = 8):
     return scene
 
 
-def solver_cfg(cfg, variant: str, res: int):
-    """(a) the default solver; (b) HOT's assembled Galerkin multigrid."""
+# (b) overrides the library's default power_iters (8): from its smooth
+# start vector, 8 iterations underestimate the smoothers' lambda_max at
+# 128^3, the Chebyshev smoother then amplifies the top modes and Newton
+# stalls at full dt (ROADMAP D11). The step phase reports the default too.
+B_POWER_ITERS = 30
+TIGHT_CN_EPS = 1e-4  # the cross-check's reference solve
+
+
+def solver_cfg(cfg, variant: str, res: int, power_iters: int = B_POWER_ITERS,
+               **solver_kw):
+    """(a) the default solver; (b) HOT's assembled Galerkin multigrid.
+    `solver_kw` overrides further SolverConfig fields (e.g. cn_eps)."""
     import dataclasses
 
     from hot_mpm.utils.config import MultigridConfig
 
-    if variant == "a":
-        return cfg
-    assert variant == "b", variant
-    # 30 power iterations: from its smooth start vector, the default 8
-    # underestimate the smoothers' lambda_max at 128^3, the Chebyshev
-    # smoother then amplifies the top modes and Newton stalls at full dt
-    mg = MultigridConfig(levels=4 if res >= 64 else 2, smoother="chebyshev",
-                         coarse_solver="direct", assembled=True,
-                         coarsening="galerkin", power_iters=30)
+    if variant == "b":
+        mg = MultigridConfig(levels=4 if res >= 64 else 2,
+                             smoother="chebyshev", coarse_solver="direct",
+                             assembled=True, coarsening="galerkin",
+                             power_iters=power_iters)
+        solver_kw = dict(solver_kw, preconditioner="multigrid", multigrid=mg)
+    else:
+        assert variant == "a", variant
     return dataclasses.replace(cfg, solver=dataclasses.replace(
-        cfg.solver, preconditioner="multigrid", multigrid=mg))
+        cfg.solver, **solver_kw))
 
 
 # ----------------------------------------------------------------- layers
@@ -204,7 +216,7 @@ def run_steps(scene, cfg, n_steps: int, dev, label: str) -> dict:
                      plasticity=scene["plasticity"])
     dt = sim.compute_dt()
     times, counts = [], []
-    x_first = None
+    x_first = J_first = None
     for k in range(n_steps + 1):
         t0 = time.perf_counter()
         stats = sim.step(dt)
@@ -214,6 +226,7 @@ def run_steps(scene, cfg, n_steps: int, dev, label: str) -> dict:
                        bool(stats.converged)))
         if k == 0:
             x_first = np.asarray(sim.state.x)
+            J_first = np.linalg.det(np.asarray(sim.state.F))
         check(bool(np.all(np.isfinite(np.asarray(sim.state.x)))),
               f"{label}: non-finite state at step {k}")
         check(bool(stats.converged), f"{label}: step {k} did not converge")
@@ -232,7 +245,8 @@ def run_steps(scene, cfg, n_steps: int, dev, label: str) -> dict:
     steady = statistics.median(times[1:])
     out = dict(dt=dt, compile_s=times[0] - steady, s_per_step=steady,
                step_s=times, counts=counts, regrows=len(regrows),
-               peak_bytes=peak_bytes(dev), x_first=x_first)
+               peak_bytes=peak_bytes(dev), x_first=x_first,
+               J_first=J_first)
     log(f"[step] {label}: dt={dt:.4e} compile ~{out['compile_s']:.1f} s "
         f"(first step minus a steady one), {steady:.3f} s/step; "
         f"(newton, cg, converged) per step {counts}; regrows at start "
@@ -254,38 +268,126 @@ def run_steps(scene, cfg, n_steps: int, dev, label: str) -> dict:
     return out
 
 
+def report_default_mg(scene, res: int) -> dict:
+    """One step of (b) with the library's default power_iters. At 128^3
+    this is a known failure (ROADMAP D11): it is printed so the gap stays
+    visible, and does not decide the run."""
+    import jax
+
+    from hot_mpm.sim import Simulation
+    from hot_mpm.utils.config import MultigridConfig
+
+    pi = MultigridConfig().power_iters
+    cfg = solver_cfg(scene["cfg"], "b", res, power_iters=pi)
+    sim = Simulation(cfg, scene["state"], scene["model"], scene["colliders"],
+                     plasticity=scene["plasticity"])
+    dt = sim.compute_dt()
+    t0 = time.perf_counter()
+    stats = sim.step(dt)
+    jax.block_until_ready(sim.state.x)
+    secs = time.perf_counter() - t0
+    retries = [(int(r["newton_iters"]), int(r["cg_iters"]),
+                round(float(r["cn_residual"]), 4))
+               for r in sim.metrics.records if r.get("event") == "dt_retry"]
+    out = dict(power_iters=pi, newton=int(stats.newton_iters),
+               cg=int(stats.cg_iters), converged=bool(stats.converged),
+               dt_retries=len(retries), seconds=secs)
+    log(f"[step] (b) at the library default power_iters={pi}: dt_retry x"
+        f"{len(retries)} (failed attempts' newton, cg, CN: {retries}); last "
+        f"attempt newton {out['newton']}, cg {out['cg']}, converged "
+        f"{out['converged']}; {secs:.1f} s with compile. KNOWN FAILURE at "
+        f"128^3 (ROADMAP D11): reported, not gating")
+    del sim
+    gc.collect()
+    return out
+
+
+def tight_first_step(scene, res: int):
+    """The first step of (a) with cn_eps tightened to TIGHT_CN_EPS: the
+    pointwise reference both configurations' first steps are held to."""
+    import numpy as np
+
+    from hot_mpm.sim import Simulation
+
+    cfg = solver_cfg(scene["cfg"], "a", res, cn_eps=TIGHT_CN_EPS,
+                     max_newton=40, max_cg=400)
+    sim = Simulation(cfg, scene["state"], scene["model"], scene["colliders"],
+                     plasticity=scene["plasticity"])
+    t0 = time.perf_counter()
+    stats = sim.step(sim.compute_dt())
+    x = np.asarray(sim.state.x)
+    J = np.linalg.det(np.asarray(sim.state.F))
+    log(f"[step] tight reference, (a) at cn_eps {TIGHT_CN_EPS:g}: newton "
+        f"{int(stats.newton_iters)}, cg {int(stats.cg_iters)}, CN "
+        f"{float(stats.cn_residual):.3e}; {time.perf_counter() - t0:.1f} s "
+        f"with compile")
+    check(bool(stats.converged) and bool(np.all(np.isfinite(x))),
+          "tight reference step did not converge")
+    check(not any(r.get("event") for r in sim.metrics.records),
+          "tight reference step was retried or regrown")
+    del sim
+    gc.collect()
+    return x, J
+
+
 def phase_step(res: int, variants, n_steps: int, rec: dict) -> None:
     import jax
     import numpy as np
+
+    from hot_mpm.utils.config import MultigridConfig
 
     dev = jax.devices()[0]
     scene = bar_scene(res)
     log(f"[step] twisting_bar_3d res={res} ppc=8: {scene['state'].n} "
         f"particles, {res ** 3} grid nodes")
+    labels = {"a": "(a)", "b": f"(b) power_iters={B_POWER_ITERS} [override;"
+              f" library default {MultigridConfig().power_iters}]"}
     rec["step"] = {}
+    xs = {}
     for v in variants:
         cfg = solver_cfg(scene["cfg"], v, res)
-        r = run_steps(scene, cfg, n_steps, dev, f"({v})")
-        rec["step"][v] = {k: val for k, val in r.items() if k != "x_first"}
-        rec["step"][v]["_x"] = r["x_first"]
-    if "a" in rec["step"] and "b" in rec["step"]:
-        # both solve the same Newton systems, each to the CN tolerance
-        # (cn_eps 1e-2): an RMS criterion over active nodes, so pointwise
-        # the two converged steps agree only to a fraction of a cell. The
-        # tolerance is sub-cell agreement, 0.5 dx — the bound the CPU suite
-        # uses for assembled-vs-matrix-free MG trajectories
-        dx = scene["cfg"].dx
-        d = np.max(np.abs(rec["step"]["a"]["_x"] - rec["step"]["b"]["_x"]),
-                   axis=1) / dx
-        diff, rms = float(np.max(d)), float(np.sqrt(np.mean(d * d)))
-        log(f"[step] cross-check (a) vs (b), first step: max |x_a - x_b| "
-            f"{diff:.3e} dx, rms {rms:.3e} dx, 99th percentile "
-            f"{float(np.quantile(d, 0.99)):.3e} dx (tol: max 0.5 dx)")
-        rec["step"]["cross_dx"] = diff
-        rec["step"]["cross_rms_dx"] = rms
-        check(diff <= 0.5, "(a)/(b) cross-check beyond tolerance")
-    for v in variants:
-        rec["step"][v].pop("_x")
+        r = run_steps(scene, cfg, n_steps, dev, labels[v])
+        xs[v] = (r.pop("x_first"), r.pop("J_first"))
+        rec["step"][v] = r
+    if "b" in variants:
+        rec["step"]["b_default"] = report_default_mg(scene, res)
+    if not ("a" in xs and "b" in xs):
+        return
+    # Cross-check of the first steps. Both configurations solve the same
+    # Newton systems, but each stops once the characteristic norm (CN, an
+    # RMS over ~70k active nodes) is below cn_eps = 1e-2. An RMS lets one
+    # node keep a large local residual: at 128^3 (a) leaves 0.24 dx at a
+    # particle on the bar's corner by the left clamp face, which the tight
+    # solve does not have (ROADMAP R6). Hence pointwise bounds against a
+    # tight solve, and RMS / 99th-percentile bounds between (a) and (b),
+    # each about 4-10x its reading on the H100.
+    dx = scene["cfg"].dx
+    x0 = np.asarray(scene["state"].x)
+    x_t, J_t = tight_first_step(scene, res)
+    dist = lambda p, q: np.max(np.abs(p - q), axis=1) / dx
+    d_ab = dist(xs["a"][0], xs["b"][0])
+    d_at = dist(xs["a"][0], x_t)
+    d_bt = dist(xs["b"][0], x_t)
+    rms = lambda d: float(np.sqrt(np.mean(d * d)))
+    ab = dict(max=float(d_ab.max()), rms=rms(d_ab),
+              p99=float(np.quantile(d_ab, 0.99)))
+    i = int(np.argmax(d_at))
+    log(f"[step] cross-check (a) vs (b), first step: rms {ab['rms']:.3e} dx "
+        f"(tol 5e-3), 99th percentile {ab['p99']:.3e} dx (tol 1e-2), max "
+        f"{ab['max']:.3e} dx (not bounded: RMS stopping rule)")
+    log(f"[step] (b) vs the tight reference: max {d_bt.max():.3e} dx (tol "
+        f"5e-3), rms {rms(d_bt):.3e} dx")
+    log(f"[step] (a) vs the tight reference: max {d_at.max():.3e} dx, rms "
+        f"{rms(d_at):.3e} dx; worst particle {i} from x0 "
+        f"{[round(float(c), 4) for c in x0[i]]}: det F {xs['a'][1][i]:.3f} in (a), "
+        f"{J_t[i]:.3f} in the tight solve ({int((d_at > 1e-2).sum())} "
+        f"particles beyond 1e-2 dx)")
+    rec["step"]["cross"] = dict(
+        ab, b_vs_tight_max=float(d_bt.max()), a_vs_tight_max=float(d_at.max()),
+        a_vs_tight_rms=rms(d_at))
+    check(ab["rms"] <= 5e-3 and ab["p99"] <= 1e-2,
+          "(a)/(b) cross-check beyond tolerance")
+    check(float(d_bt.max()) <= 5e-3, "(b) beyond 5e-3 dx of the tight solve")
 
 
 # -------------------------------------------------------------- reference

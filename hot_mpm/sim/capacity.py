@@ -115,10 +115,14 @@ def _binned_transfers(cfg) -> bool:
 
 
 def _per_cell_cap(per_cell: int, grow: float) -> int:
-    """Per-cell bin capacity: 25% headroom over the fullest cell. A cell
-    gains particles as a compressed body packs, and every overflow is a
-    regrow + recompile of the whole step (minutes for the assembled-MG
-    step at 128^3 on the GPU)."""
+    """Per-cell bin capacity: 25% headroom over the fullest cell.
+
+    Cells gain particles as a compressed body packs. On the 128^3
+    twisting bar from `scenes.stress_state`, the level-2 MG cells outgrow
+    an exact fit (+1) on the second step; the regrow recompiles the whole
+    assembled-MG step (96 s on an H100 80GB HBM3, 700 W) and grow_plan
+    leaves every cap >=25% larger. The headroom costs about 2% of that
+    step (0.608 vs 0.598 s for the first step, same card)."""
     return int(math.ceil(grow * (1.25 * per_cell + 1)))
 
 
